@@ -13,7 +13,7 @@ frame) from a warm page-cache file:
 Also times each path feeding a simulated consumer that touches one byte
 per 4 KiB page (the cheapest realistic "consume" — a device transfer
 would read every page), to show the overlap benefit rather than raw
-iterator overhead alone.  Pure host measurement: no TPU involved.
+iterator overhead alone.  Pure host measurement: no accelerator involved.
 
 Usage: python benchmarks/ingest.py
   VAUDIO_INGEST_FRAMES=N   frames per run (default 120)

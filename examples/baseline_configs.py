@@ -9,7 +9,7 @@
 
 Run: ``python examples/baseline_configs.py [1-5 | all]``
 (on CPU set JAX_PLATFORMS=cpu; config 5 wants 8 devices — use
-``jax.config.update('jax_num_cpu_devices', 8)`` or a TPU pod slice).
+``jax.config.update('jax_num_cpu_devices', 8)`` or a multi-GPU host).
 """
 
 import os

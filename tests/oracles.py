@@ -249,3 +249,60 @@ def phase_accumulate_np(phase_accum, hues, freqs, hop, fs,
             adv = 2 * np.pi * (f0 * BESSEL[b]) * hop / fs
             pa[idx] = np.fmod(pa[idx] + adv, 2 * np.pi)
     return pa
+
+
+def sigmoid_normalize_scalar(x, m, k=2.0):
+    """Literal HelperFunctions.swift:132-138: logistic curve at x/M,
+    rescaled so 0 -> 0 and 1 -> 1."""
+    def g(t):
+        return 1.0 / (1.0 + np.exp(-k * (t - 0.5)))
+    return (g(x / m) - g(0.0)) / (g(1.0) - g(0.0))
+
+
+def agc_ola_np(signal, ola_tail, running_max, attack, release, window):
+    """Literal SoundEngine.swift:403-428 audio tail for one synthesized
+    frame, scalar loops in float64: the frame peak drives the attack/
+    release running max (:412-420), the frame is divided by
+    peak / clamp(sigmoidNormalize(peak, runningMax), 0, 1) (:421-426),
+    then renderAudioFrame's overlap-add (:231-254) re-normalizes to peak
+    1, applies the window, and sums the first half with the previous
+    frame's second half.
+
+    ``signal``/``ola_tail`` are (nfft,) mono or (channels, nfft) stereo;
+    the peak (and so every gain) is shared across channels.
+    Returns (out_hop, new_tail, new_running_max)."""
+    sig = np.atleast_2d(np.asarray(signal, np.float64))
+    tail = np.atleast_2d(np.asarray(ola_tail, np.float64))
+    ch, nfft = sig.shape
+    hop = nfft // 2
+    peak = 0.0
+    for c in range(ch):
+        for n in range(nfft):
+            peak = max(peak, abs(sig[c, n]))
+    peak += 1e-9
+    if peak > running_max:
+        new_max = attack * peak + (1.0 - attack) * running_max
+    else:
+        new_max = release * peak + (1.0 - release) * running_max
+    factor = min(max(sigmoid_normalize_scalar(peak, new_max), 0.0), 1.0)
+    norm_value = peak / factor if factor > 0.0 else np.inf
+    normalized = np.zeros_like(sig)
+    for c in range(ch):
+        for n in range(nfft):
+            v = sig[c, n] / norm_value
+            normalized[c, n] = v if np.isfinite(v) else 0.0
+    fpeak = 0.0
+    for c in range(ch):
+        for n in range(nfft):
+            fpeak = max(fpeak, abs(normalized[c, n]))
+    gain = 1.0 / (fpeak + 1e-6)
+    windowed = np.zeros_like(sig)
+    out = np.zeros((ch, hop))
+    for c in range(ch):
+        for n in range(nfft):
+            windowed[c, n] = normalized[c, n] * gain * window[n]
+        for n in range(hop):
+            out[c, n] = tail[c, hop + n] + windowed[c, n]
+    if np.ndim(signal) == 1:
+        return out[0], windowed[0], new_max
+    return out, windowed, new_max

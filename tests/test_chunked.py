@@ -69,7 +69,7 @@ class TestChunkedEquivalence:
         assert_equivalent(clip(rng), AuralizerConfig(quirk_compat=False))
 
     def test_matmul_irfft(self, rng):
-        """cfg.use_matmul_irfft: the MXU IDFT path through BOTH runtimes
+        """cfg.use_matmul_irfft: the dense-matmul IDFT through BOTH runtimes
         (scan uses it in synth_audio, chunked in pass C2) stays
         equivalent, mono and stereo."""
         assert_equivalent(clip(rng), AuralizerConfig(use_matmul_irfft=True))
@@ -186,18 +186,6 @@ class TestChunkedEquivalence:
         assert pd.max() < 2e-3, pd.max()
         np.testing.assert_allclose(np.asarray(a_new), np.asarray(a_ref),
                                    atol=1e-3)
-
-    def test_batched_pallas_interpret_matches(self, rng):
-        """use_pallas=True routes through the batched kernel (interpret
-        mode on CPU) and must agree with the jnp contraction."""
-        frames = clip(rng, t=3)
-        cfg = AuralizerConfig()
-        a_j, _, _ = run_offline_batched(frames, cfg, dict(PARAMS),
-                                        use_pallas=False)
-        a_p, _, _ = run_offline_batched(frames, cfg, dict(PARAMS),
-                                        use_pallas=True)
-        np.testing.assert_allclose(np.asarray(a_p), np.asarray(a_j),
-                                   atol=5e-4)
 
 
 class TestBlockedPipeline:

@@ -4,11 +4,14 @@ Covers the oracle list from SURVEY.md §4: Hann-sinc window transform,
 mirror+irfft round-trip, sigmoid AGC, nearest-bin snap, hash phases.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
+import oracles
 from vaudio import dsp
 from vaudio.config import AuralizerConfig
 
@@ -153,7 +156,7 @@ class TestMirrorIrfft:
         np.testing.assert_allclose(sig, oracle, atol=1e-4)
 
     def test_irfft_dense_matches_fft_path(self, rng):
-        """The MXU IDFT (cfg.use_matmul_irfft) against the FFT path and
+        """The dense IDFT (cfg.use_matmul_irfft) against the FFT path and
         an f64 oracle, at production size and batched stereo shapes."""
         F = CFG.num_bins
         re = rng.normal(size=(3, 2, F)).astype(np.float32) * 0.02
@@ -165,8 +168,8 @@ class TestMirrorIrfft:
             + 1j * im.astype(np.float64)
         oracle = np.fft.irfft(full, n=CFG.nfft, axis=-1)
         scale = np.abs(oracle).max()
-        # Measured on the v5e: 2.9e-7 of peak (benchmarks/irfft_focus.py);
-        # CPU f32 matmuls land in the same regime.
+        # Exact-f32 dense IDFT: ~3e-7 of peak on the CPU; 2e-6 leaves
+        # room for another backend's summation order.
         assert np.abs(dense - oracle).max() / scale < 2e-6
         fft = np.asarray(dsp.irfft_from_half(re[0, 0], im[0, 0]))
         np.testing.assert_allclose(dense[0, 0], fft,
@@ -308,3 +311,82 @@ class TestPeakPolyAccuracy:
         got = np.asarray(dsp.sinpi_reduced(jnp.asarray(x)))
         ref = np.sin(np.pi * x.astype(np.float64))
         np.testing.assert_allclose(got, ref, atol=3e-7)
+
+
+class TestFastPeakFormula:
+    """dsp.hann_sinc_peak_fast, the peak evaluation the contraction uses,
+    against the three-sinc closed form."""
+
+    def test_matches_three_sinc_form(self, rng):
+        d = np.concatenate([
+            rng.uniform(-50, 50, 2048),
+            np.array([0.0, 1.0, -1.0, 2.0, -2.0, 0.5, 1e-7, 1 + 1e-7]),
+        ]).astype(np.float32)
+        fast = np.asarray(dsp.hann_sinc_peak_fast(jnp.asarray(d)))
+        ref = np.asarray(dsp.hann_sinc_peak(d))
+        np.testing.assert_allclose(fast, ref, atol=3e-6)
+
+    def test_exact_special_points(self):
+        d = jnp.asarray([0.0, 1.0, -1.0], jnp.float32)
+        np.testing.assert_allclose(np.asarray(dsp.hann_sinc_peak_fast(d)),
+                                   [0.5, -0.25, -0.25], atol=1e-7)
+
+
+class TestAgcOlaOracle:
+    """The XLA audio tail (runtime.step.synth_audio: agc_normalize then
+    overlap_add) against the scalar transcription of
+    SoundEngine.swift:403-428 in tests/oracles.py."""
+
+    @staticmethod
+    def run_tail(spec, tail, rmax, att, rel):
+        """spec: f32[F, 2] mono or f32[ch, F, 2] half spectrum."""
+        from vaudio.runtime.step import synth_audio
+        ch = 1 if spec.ndim == 2 else spec.shape[0]
+        cfg = dataclasses.replace(CFG, channels=ch)
+        w = jnp.asarray(dsp.hann_window_norm(cfg.nfft))
+        halves = spec[None] if ch == 1 else spec
+        frame = np.stack([np.asarray(dsp.irfft_from_half(
+            jnp.asarray(h[:, 0]), jnp.asarray(h[:, 1]))) for h in halves])
+        params = {"attack": np.float32(att), "release": np.float32(rel)}
+        pcm, new_tail, new_max = synth_audio(
+            jnp.asarray(spec), jnp.asarray(tail), jnp.float32(rmax), params,
+            cfg, w)
+        want = oracles.agc_ola_np(frame[0] if ch == 1 else frame, tail,
+                                  rmax, att, rel, np.asarray(w, np.float64))
+        return (np.asarray(pcm), np.asarray(new_tail), float(new_max)), want
+
+    @staticmethod
+    def half_spectrum(rng, *lead):
+        return rng.normal(0, 0.02, lead + (CFG.num_bins, 2)).astype(
+            np.float32)
+
+    @pytest.mark.parametrize("rmax,att,rel", [(1.0, 1.0, 1.0),
+                                              (0.3, 0.5, 0.2),
+                                              (20.0, 0.0, 0.25)])
+    def test_mono(self, rng, rmax, att, rel):
+        tail = rng.normal(size=CFG.nfft).astype(np.float32) * 0.1
+        (pcm, new_tail, nm), (o_pcm, o_tail, o_max) = self.run_tail(
+            self.half_spectrum(rng), tail, rmax, att, rel)
+        np.testing.assert_allclose(nm, o_max, rtol=1e-5)
+        np.testing.assert_allclose(pcm, o_pcm, atol=1e-5)
+        np.testing.assert_allclose(new_tail, o_tail, atol=1e-5)
+
+    def test_stereo_shares_gain(self, rng):
+        nfft = CFG.nfft
+        spec = self.half_spectrum(rng, 2)
+        spec[1] *= 0.25                       # quieter right channel
+        tail = rng.normal(size=(2, nfft)).astype(np.float32) * 0.1
+        (pcm, new_tail, nm), (o_pcm, o_tail, o_max) = self.run_tail(
+            spec, tail, 1.0, 1.0, 1.0)
+        assert pcm.shape == (nfft // 2, 2)     # interleaved (hop, ch)
+        np.testing.assert_allclose(pcm, o_pcm.T, atol=1e-5)
+        np.testing.assert_allclose(new_tail, o_tail, atol=1e-5)
+        np.testing.assert_allclose(nm, o_max, rtol=1e-5)
+
+    def test_zero_signal(self):
+        z = np.zeros(CFG.nfft, np.float32)
+        (pcm, new_tail, nm), (o_pcm, o_tail, o_max) = self.run_tail(
+            np.zeros((CFG.num_bins, 2), np.float32), z, 1.0, 1.0, 1.0)
+        assert np.all(np.isfinite(pcm))
+        np.testing.assert_allclose(pcm, o_pcm, atol=1e-7)
+        np.testing.assert_allclose(nm, o_max, rtol=1e-6)

@@ -1,12 +1,14 @@
 """Driver entry-point contract tests (8-device virtual CPU mesh)."""
 
+import os
 import sys
 
 import numpy as np
 
 import jax
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 
 def test_entry_compiles_and_runs():

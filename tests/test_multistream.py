@@ -88,7 +88,7 @@ class TestPodEquivalence:
 class TestPodMesh:
     @pytest.mark.parametrize("mesh_shape,chunk", [
         ((8, 1), 1),    # pure stream-DP
-        ((4, 2), 1),    # DP x cell-TP (psum over ICI)
+        ((4, 2), 1),    # DP x cell-TP (psum over the cell axis)
         ((8, 1), 2),    # DP chunk-batched (the throughput shape)
     ])
     def test_mesh_pod_matches_offline(self, mesh_shape, chunk):

@@ -1,5 +1,5 @@
 """Multi-chip sharding tests on the 8-device virtual CPU mesh
-(SURVEY.md §4: shard_map configs tested without a real TPU mesh)."""
+(SURVEY.md §4: shard_map configs tested without real accelerators)."""
 
 import numpy as np
 import pytest

@@ -10,8 +10,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def test_bounded_soak():
     from benchmarks.soak import run_soak
-    # size 64 + mip 1 -> 64 mip px/cell: same hue-gate margin as the TPU
-    # run's 256/mip-3 at 9x less pixel work.
+    # size 64 + mip 1 -> 64 mip px/cell: same hue-gate margin as a
+    # 256/mip-3 run at 9x less pixel work.
     summary = run_soak(total_frames=200_000, budget_s=45.0, chunk=1000,
                        size=64, mip_level=1, log=lambda s: None)
     assert summary["ok"]

@@ -189,14 +189,6 @@ class TestStereoEndToEnd:
         back, sr = read_wav(path)
         assert back.shape == (3 * 2048, 2)
 
-    def test_pallas_stereo_matches_jnp(self, rng):
-        cfg_pl = dataclasses.replace(STEREO, use_pallas=True)
-        frames = rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
-        a_pl, _, _ = run_offline(frames, cfg_pl, PARAMS)
-        a_jnp, _, _ = run_offline(frames, STEREO, PARAMS)
-        np.testing.assert_allclose(np.asarray(a_pl), np.asarray(a_jnp),
-                                   atol=1e-3)
-
     def test_streaming_stereo(self):
         from vaudio.api import Auralizer
         from vaudio.io import solid_color_frames

@@ -242,3 +242,95 @@ class TestCleanModeOracle:
             quirk_stride=32, quirk_bessel_offset=13)
         np.testing.assert_allclose(got[:, 0], expect_c.real, atol=2e-4)
         np.testing.assert_allclose(got[:, 1], expect_c.imag, atol=2e-4)
+
+
+class TestContractionOracle:
+    """The spectrum contraction (the single-frame ``contract_spectrum``
+    and the chunk pipeline's vmapped ``_batched_contraction``) against
+    the same f32 peak matrix contracted in float64 — the plain XLA path
+    that replaced the fused spectrum kernel."""
+
+    @staticmethod
+    def inputs(rng, *lead, k=2):
+        consts = SynthConstants.create(CFG)
+        npart = int(consts.seed_phase.size)
+        pf = rng.uniform(30.0, 18000.0, lead + (npart,)).astype(np.float32)
+        w = rng.normal(0, 1e-2, lead + (npart, k)).astype(np.float32)
+        ibw = rng.choice([1.0, 0.2], lead + (npart,)).astype(np.float32)
+        return consts, pf, w, ibw
+
+    @staticmethod
+    def f64_oracle(consts, pf, w, ibw):
+        from vaudio.dsp import hann_sinc_peak_fast
+        d = (np.asarray(consts.freqs)[:, None] - pf[None, :]) \
+            * (np.float32(1.0 / CFG.bin_width) * ibw)[None, :]
+        W = np.asarray(hann_sinc_peak_fast(jnp.asarray(d)), np.float64)
+        return W @ w.astype(np.float64)
+
+    def test_single_frame(self, rng):
+        from vaudio.synth import contract_spectrum
+        consts, pf, w, ibw = self.inputs(rng, k=4)
+        got = np.asarray(contract_spectrum(jnp.asarray(pf), jnp.asarray(w),
+                                           jnp.asarray(ibw), CFG, consts))
+        want = self.f64_oracle(consts, pf, w, ibw)
+        assert got.shape == (CFG.num_bins, 4)
+        np.testing.assert_allclose(got, want,
+                                   atol=2e-6 * np.abs(want).max())
+
+    def test_batched_matches_single(self, rng):
+        from vaudio.runtime.chunked import _batched_contraction
+        from vaudio.synth import contract_spectrum
+        consts, pf, w, ibw = self.inputs(rng, 3)
+        got = np.asarray(_batched_contraction(
+            jnp.asarray(pf), jnp.asarray(w), jnp.asarray(ibw), CFG, consts))
+        assert got.shape == (3, CFG.num_bins, 2)
+        for t in range(3):
+            one = np.asarray(contract_spectrum(
+                jnp.asarray(pf[t]), jnp.asarray(w[t]), jnp.asarray(ibw[t]),
+                CFG, consts))
+            np.testing.assert_allclose(got[t], one, atol=1e-6)
+            want = self.f64_oracle(consts, pf[t], w[t], ibw[t])
+            np.testing.assert_allclose(got[t], want,
+                                       atol=2e-6 * np.abs(want).max())
+
+    def test_full_spectrum(self, rng):
+        """build_spectrum = contraction + static rotation + EMA, against
+        the f64 composition of the same stages."""
+        from vaudio.synth import (flatten_partials, live_pan_from_params,
+                                  partial_weights)
+        consts = SynthConstants.create(CFG)
+        hues = jnp.asarray(rng.integers(0, 361, 16).astype(np.int32))
+        grads = jnp.asarray(np.abs(rng.normal(0, 0.3, (16, 4))
+                                   ).astype(np.float32))
+        phases = jnp.asarray(rng.uniform(0, 2 * np.pi, (16, 32)
+                                         ).astype(np.float32))
+        prev = rng.normal(0, 0.01, (CFG.num_bins, 2)).astype(np.float32)
+        got = np.asarray(build_spectrum(hues, grads, phases,
+                                        jnp.asarray(prev), jnp.float32(0.5),
+                                        CFG, consts))
+        pf, wr, wi, ibw = partial_weights(hues, grads, phases, CFG, consts)
+        fpf, fw, fibw = flatten_partials(pf, wr, wi, ibw, CFG,
+                                         pan=live_pan_from_params(CFG, None))
+        cur = self.f64_oracle(consts, np.asarray(fpf), np.asarray(fw),
+                              np.asarray(fibw))
+        c = np.asarray(consts.static_cos, np.float64)
+        s = np.asarray(consts.static_sin, np.float64)
+        rot = np.stack([cur[:, 0] * c - cur[:, 1] * s,
+                        cur[:, 0] * s + cur[:, 1] * c], axis=-1)
+        want = prev * 0.5 + rot * 0.5
+        np.testing.assert_allclose(got, want,
+                                   atol=2e-6 * np.abs(want).max() + 1e-9)
+
+    def test_end_to_end_chunked_vs_scan_contraction(self, rng):
+        """The chunk pipeline's batched contraction and the per-frame
+        step's contraction give the same audio end to end (serial phases,
+        so only the contraction path differs)."""
+        from vaudio.runtime import run_offline, run_offline_batched
+        from vaudio.config import LiveParams
+        cfg = dataclasses.replace(CFG, use_cumsum_phases=False)
+        frames = rng.uniform(0, 1, (4, 64, 64, 3)).astype(np.float32)
+        params = LiveParams().as_arrays()
+        a_scan, _, _ = run_offline(frames, cfg, params)
+        a_chunk, _, _ = run_offline_batched(frames, cfg, params, chunk=4)
+        np.testing.assert_allclose(np.asarray(a_chunk), np.asarray(a_scan),
+                                   atol=2e-5)

@@ -1,6 +1,6 @@
-"""Vaudio — a TPU-native real-time video-sonification framework.
+"""Vaudio — a real-time video-sonification framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 ``ma-casali/video-auralizer`` (an iOS Swift/Metal app): live video frames are
 reduced to per-cell color/gradient features that drive an additive
 harmonic+Bessel spectral synthesizer, inverse-FFT'd and overlap-added into a
@@ -13,7 +13,6 @@ Layer map (mirrors SURVEY.md §1 of the reference):
                         + convolveFeatures.metal)
 * ``vaudio.synth``    — spectral synthesis (ref L3, SoundEngine.swift +
                         SpectrumCompute.metal)
-* ``vaudio.ops``      — fused Pallas TPU kernels for the hot paths
 * ``vaudio.runtime``  — the single jitted per-frame step, offline scan and
                         streaming host loop (ref L3/L4 runtime behavior)
 * ``vaudio.io``       — frame sources and PCM sinks (ref L6 + AVFoundation)

@@ -106,12 +106,10 @@ class Auralizer:
         conversion path.
 
         ``mode``: ``"chunked"`` = the chunk-batched pipeline (ONE frame-
-        batched XLA contraction for the synthesis stage, ~2x the scan
-        throughput at 1080p, bit-identical audio — runtime.chunked;
-        the Pallas spectrum kernel stays opt-in via cfg.use_pallas);
-        ``"scan"`` = the
-        per-frame lax.scan; ``"auto"`` (default) picks chunked for clips
-        of >= 8 frames."""
+        batched XLA contraction for the synthesis stage; audio equal to
+        the scan path within the documented band — runtime.chunked);
+        ``"scan"`` = the per-frame lax.scan; ``"auto"`` (default) picks
+        chunked for clips of >= 8 frames."""
         if isinstance(frames, ArraySource):
             frames = frames.tensor()
         if not isinstance(frames, dict):

@@ -14,11 +14,11 @@ SoundEngine.swift:156-228 the pull-model speaker) — from another
 process or machine.
 
 Pure host-side: numpy + urllib only, never imports jax — a client can
-run on a laptop against a pod on a TPU host.
+run on a laptop against a pod on a GPU host.
 
     from vaudio.client import PodClient
 
-    pod = PodClient("http://tpu-host:8000")
+    pod = PodClient("http://gpu-host:8000")
     with pod.lease(when_empty="dark") as slot:   # fleet allocation
         for frame in frames:
             slot.push(frame)
@@ -504,12 +504,12 @@ class _LeaseContext:
 
 
 class FleetClient:
-    """Lease placement across a FLEET of serving pods (one per TPU
+    """Lease placement across a FLEET of serving pods (one per GPU
     host, each a ``vaudio pod --serve``): :meth:`acquire` picks the pod
     with the most capacity and leases there, so callers scale past one
     pod's ``max_streams`` without tracking hosts themselves.
 
-        fleet = FleetClient(["http://tpu-a:8000", "http://tpu-b:8000"])
+        fleet = FleetClient(["http://gpu-a:8000", "http://gpu-b:8000"])
         with fleet.lease(when_empty="dark") as slot:
             for f in frames: slot.push(f)      # slot.client is the pod
 

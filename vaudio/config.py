@@ -1,4 +1,4 @@
-"""Typed configuration for the Vaudio TPU framework.
+"""Typed configuration for the vaudio framework.
 
 The reference app hardcodes its operating constants across several files
 (reference: video-auralizer/SoundEngine.swift:46-48 `sampleRate/videoFs/NFFT`;
@@ -91,64 +91,36 @@ class AuralizerConfig:
     quantize_mips: bool = False
     # With quantize_mips on and uint8 input, run the quantized chain in
     # ALL-INTEGER arithmetic (vision.features._quant_pool_level_u8):
-    # per-level int8 MXU matmuls with an exact round-half-to-even
-    # integer epilogue, instead of the f32 emulation (two f32 matmuls +
-    # round(x*255)/255 per level, measured 0.544 ms/frame = 61x at
-    # 1080p).  Deviation: at an EXACT 2x2-mean midpoint the f32 path's
-    # rounding is decided by ~1e-4 of accumulated float error while
-    # this path rounds half-to-even — <= 1 grid step/level, and both
-    # are approximations of Metal's unspecified bgra8Unorm rounding
-    # (docs/PARITY.md).  Measured round 5 (same-session A/B,
-    # benchmarks/AB_QUANT_r05.json): see docs/BENCHMARKS.md.
+    # per-level int8 matmuls with an exact round-half-to-even integer
+    # epilogue, instead of the f32 emulation (two f32 matmuls +
+    # round(x*255)/255 per level).  Deviation: at an EXACT 2x2-mean
+    # midpoint the f32 path's rounding is decided by ~1e-4 of
+    # accumulated float error while this path rounds half-to-even —
+    # <= 1 grid step/level, and both are approximations of Metal's
+    # unspecified bgra8Unorm rounding (docs/PARITY.md).  Speed not
+    # measured on the H100.
     quantize_mips_int8: bool = False
     # Reference aggregates gradients over contiguous 1/16 slices of the
     # rotated linear pixel array, NOT the 4x4 spatial grid the histogram
     # uses (VisionEngine.swift:278-283; SURVEY §2.2).  True reproduces that
     # asymmetry; False uses the spatial 4x4 tiling.
     linear_cell_grads: bool = True
-    # Use the fused Pallas synthesis kernel instead of the jnp reference
-    # implementation for the spectrum builder.
-    use_pallas: bool = False
-    # Use the fused Pallas AGC+overlap-add kernel for the audio tail
-    # (independent of use_pallas: it is much cheaper to compile).
-    use_pallas_audio: bool = False
-    # Use the fused Pallas mip-pool kernel (vaudio.ops.mip_pool_pallas)
-    # for uint8 frames whose channel planes fit VMEM (<= ~1080p): same
-    # integer accumulation as the XLA banded path (bit-identical i32
-    # sums; the final f32 scale multiply can differ by 1 ulp, observed
-    # <= 6e-8, which only matters if a hue lands exactly on a bin edge)
-    # but one pass through VMEM — 0.042 vs 0.050 ms/frame stereo 1080p
-    # chunked on the v5e (docs/BENCHMARKS.md round 2).  Only consulted
-    # on TPU backends; CPU always uses the XLA banded matmuls.
-    use_pallas_pool: bool = True
-    # Use the fused Pallas vision-epilogue kernel (ops/vision_kernel.py):
-    # HSI + tiled histogram + intensity stencils + per-cell stats in one
-    # VMEM pass on the mip planes, replacing ~4 small XLA stages.  Only
-    # consulted on TPU backends for shapes ops.vision_kernel.supports
-    # accepts (tiled bin factorization + linear-slice grad fast path);
-    # integer histogram counts are conserved but a pixel whose hue lands
-    # exactly on a bin edge can move one bin (VPU vs XLA acos ulps).
-    use_pallas_vision: bool = False
     # Inverse-FFT the synthesized half-spectrum with two dense f32
-    # matmuls on the MXU (dsp.irfft_from_half_dense) instead of XLA's
-    # TPU FFT.  Isolated chained-slope at production shapes: 0.21 vs
-    # 0.70 us/frame, accuracy 2.9e-7 of peak vs an f64 oracle (FFT:
-    # 1.6e-7) — benchmarks/irfft_focus.py; in-pipeline verdict in
-    # docs/BENCHMARKS.md.  The (2047, 4096) weight pair costs 33 MB of
-    # HBM each way per chunk, amortized across the frame batch.
+    # matmuls (dsp.irfft_from_half_dense) instead of XLA's FFT (cuFFT on
+    # the GPU).  Accuracy 2.9e-7 of peak vs an f64 oracle (FFT: 1.6e-7).
+    # The (2047, 4096) weight pair costs 33 MB of device-memory reads
+    # per chunk, amortized across the frame batch.  Default off; speed
+    # not measured on the H100.
     use_matmul_irfft: bool = False
     # Compute the per-chunk spectrum-smoothing EMA (pass C1 of
-    # runtime.chunked) as ONE lower-triangular (T, T) matmul on the MXU
-    # instead of a T-step serial lax.scan: spec_t = m^{t+1} prev +
+    # runtime.chunked) as ONE lower-triangular (T, T) matmul instead of
+    # a T-step serial lax.scan: spec_t = m^{t+1} prev +
     # (1-m) sum_{k<=t} m^{t-k} rot_k.  Mathematically identical;
     # numerically reassociated (HIGHEST-precision dot accumulation vs
     # sequential fma — observed <= 1e-6 abs at T=64), so the scan-path
     # bit-for-near guarantee of runtime.chunked no longer holds exactly
-    # when enabled.  Only affects the chunked pipeline.  Default off:
-    # measured a WASH in-pipeline at chunk <= 128 (same-session A/B
-    # 37.5 vs 37.2 us/frame, benchmarks/AB_FLAGS_r03.json — the serial
-    # EMA scan's cost is already hidden at these chunk sizes); kept as
-    # a verified alternative for chunk sizes past ~256.
+    # when enabled.  Only affects the chunked pipeline.  Default off;
+    # speed not measured on the H100.
     use_matmul_ema: bool = False
     # Accumulate per-frame phase advances (pass A of runtime.chunked)
     # as a BATCHED log-depth associative scan of mod-2pi increments
@@ -164,22 +136,17 @@ class AuralizerConfig:
     # measured 1.4e-3 rad / 6e-4 audio abs at T=32 (neither is closer
     # to exact math; the serial path is the reference-faithful one,
     # SoundEngine.swift:267-283 accumulates f32 at the same magnitude;
-    # on-device audit: benchmarks/tpu_parity.py phase_* stages).
+    # on-device audit: chip_smoke.py's parity phase).
     # Breaks the frame_step bit-for-near guarantee when enabled.  Only
-    # affects the chunked pipeline.  Default ON since round 5: the
-    # hardened same-session A/B measured 27.8 vs 35.8 us/frame stereo
-    # 1080p chunked (22%, both arms stable 5/5 —
-    # benchmarks/AB_FLAGS_r05.json); shrinking the serial scan to the
-    # hue EMA alone lifts the headline ~930 -> ~1220x realtime.  Set
-    # False for bit-for-near agreement with the per-frame scan path
-    # (docs/PARITY.md).
+    # affects the chunked pipeline.  Default ON: it shrinks the serial
+    # scan to the hue EMA alone.  Set False for bit-for-near agreement
+    # with the per-frame scan path (docs/PARITY.md).
     use_cumsum_phases: bool = True
     # Evaluate the hue arccos (vision.rgb_to_hsi_planes) with the
     # degree-7 sqrt-polynomial (Abramowitz & Stegun 4.4.46, <= 2e-8 rad
     # = 3e-9 of a hue turn) instead of the transcendental expansion —
-    # the HSI conversion is a pure-VPU stage and the polynomial saves
-    # ~0.6 us/frame at 1080p (same-session A/B, benchmarks/
-    # AB_FLAGS_r03.json: 36.6 vs 37.2 us/frame stereo chunked).  On by
+    # one sqrt and 7 fma in place of the libm expansion in the
+    # elementwise HSI stage.  On by
     # default: the deviation is two orders below the default peak-math
     # tolerance (dsp.hann_sinc_peak_fast, <= 2e-7) already accepted as
     # exact; a hue can only change histogram bin if it lands within
@@ -191,14 +158,8 @@ class AuralizerConfig:
     # bin has only 360 possible values, so the table — built ONCE per
     # (config, constants) with exactly the same f32 ops — is
     # bit-identical per hue; both the chunked prefix-sum path and the
-    # per-frame phase_accumulate route through it.  Candidate for the
-    # profiled phase-stage cost (benchmarks/CHUNK_PROFILE_r05.json:
-    # ~9 us/frame attributed); A/B'd in benchmarks/ab_flags.py arm
-    # 'phase_lut' before any default flip.  MEASURED round 5: a WASH
-    # (30.1 vs 29.8 us/frame default, both stable 5/5,
-    # benchmarks/AB_PHASELUT_r05.json) — XLA already overlaps the
-    # advance derivation; kept off, available as the verified
-    # alternative formulation.
+    # per-frame phase_accumulate route through it.  Default off; speed
+    # not measured on the H100.
     use_phase_lut: bool = False
     # Apply the spectral HP/LP filter driven by the hp/lp live params.
     # The reference plumbs these parameters all the way into its kernel but

@@ -1,9 +1,9 @@
 """Pure DSP / math primitives (the L1 layer of SURVEY.md §1).
 
-TPU-native re-expression of video-auralizer/HelperFunctions.swift plus the
-closed-form peak/hash math embedded in the Metal kernels.  Everything here is
-a pure jnp function operating on float32 arrays and safe to use under
-`jax.jit` / `lax.scan` / Pallas.
+Re-expression of video-auralizer/HelperFunctions.swift plus the closed-form
+peak/hash math embedded in the Metal kernels.  Everything here is a pure jnp
+function operating on float32 arrays and safe to use under `jax.jit` /
+`lax.scan`.
 """
 
 from vaudio.dsp.core import (

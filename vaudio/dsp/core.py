@@ -82,7 +82,7 @@ def hann_sinc_peak(d):
 
 # Minimax odd polynomial for sin(pi x) on |x| <= 0.5 (degree 9):
 # sin(pi x) ~= x*(A1 + x^2*(A3 + x^2*(A5 + x^2*(A7 + x^2*A9)))), fitted to
-# <= 2.1e-7 absolute error in f32 (see benchmarks/stage_focus history).
+# <= 2.1e-7 absolute error in f32 (tests/test_dsp.py::TestPeakPolyAccuracy).
 _SINPI_A1 = np.float32(3.1415925)
 _SINPI_A3 = np.float32(-5.167707)
 _SINPI_A5 = np.float32(2.5500314)
@@ -92,8 +92,7 @@ _SINPI_A9 = np.float32(0.07722007)
 
 def sinpi_reduced(x):
     """sin(pi x) for |x| <= 0.5 as a 5-term odd polynomial (<= 2.1e-7 abs
-    error) — ~6 VPU madds instead of a libm sine, usable verbatim inside
-    Pallas kernels."""
+    error) — ~6 multiply-adds instead of a libm sine."""
     x = jnp.asarray(x, dtype=jnp.float32)
     x2 = x * x
     p = _SINPI_A9
@@ -122,7 +121,8 @@ def hann_sinc_peak_fast(d):
       and accurate — avoiding cancellation near integer d where the
       rational factor has poles.
 
-    ~12 VPU ops + 1 divide per element, down from 3 divides + a libm sin.
+    ~12 elementwise ops + 1 divide per element, down from 3 divides + a
+    libm sin.
     """
     d = jnp.asarray(d, dtype=jnp.float32)
     pi = np.float32(np.pi)
@@ -222,7 +222,7 @@ def irfft_from_half(half_re, half_im):
 
 @functools.lru_cache(maxsize=4)
 def _idft_matrices(F: int, nfft: int):
-    """f32 inverse-DFT weight matrices (F, nfft) for the MXU path.
+    """f32 inverse-DFT weight matrices (F, nfft) for the dense path.
 
     With DC and Nyquist zero (the reference's mirrorAndConjugate layout)
     the real IDFT collapses to x[n] = (2/N) sum_k (re_k cos(2 pi (k+1)
@@ -238,15 +238,12 @@ def _idft_matrices(F: int, nfft: int):
 
 
 def irfft_from_half_dense(half_re, half_im):
-    """:func:`irfft_from_half` as two dense f32 matmuls on the MXU.
+    """:func:`irfft_from_half` as two dense f32 matmuls.
 
-    XLA's TPU FFT is the weakest kernel of the audio tail; a dense
-    (F, nfft) contraction at ``Precision.HIGHEST`` replaces it with MXU
-    work whose 33 MB weight read amortizes across the chunk batch.
-    Chained-slope isolation at production shapes ([T, 2, 2047] ->
-    [T, 2, 4096], chunk 32/256): 0.21 us/frame vs 0.70 for the FFT;
-    accuracy 2.9e-7 of peak vs an f64 oracle (the FFT path is 1.6e-7)
-    — benchmarks/irfft_focus.py.  Batched over any leading dims.
+    A dense (F, nfft) contraction at ``Precision.HIGHEST`` in place of
+    the FFT, whose 33 MB weight read amortizes across the chunk batch;
+    accuracy 2.9e-7 of peak vs an f64 oracle (the FFT path is 1.6e-7).
+    Speed not measured on the H100.  Batched over any leading dims.
     Selected by ``AuralizerConfig.use_matmul_irfft``.
     """
     F = half_re.shape[-1]

@@ -1,5 +1,5 @@
 """OrthoModes — the reference's abandoned per-pixel synthesis design,
-reconstructed as a working TPU-native model family.
+reconstructed as a working model family.
 
 The reference ships a never-wired kernel, ``computeOrthogonalModesFromTexture``
 (Metal Functions/computeOrthogonalModes.metal:14-150), that computes one
@@ -13,9 +13,9 @@ multiplied by a normalized Lorentzian whose width is driven by Q.
 This module completes that design: per-pixel (A, Q, f0) extraction with the
 kernel's exact math, then spectral synthesis by stamping one Hann x
 Lorentzian peak per pixel onto the same F-bin grid the main model uses,
-sharing the irfft/AGC/OLA audio tail.  On TPU the stamping is the same
-(bins x sources) VPU-evaluate + MXU-contract pattern as the main model —
-just with thousands of sources instead of 496 partials.
+sharing the irfft/AGC/OLA audio tail.  The stamping is the same
+(bins x sources) evaluate-then-contract pattern as the main model — just
+with thousands of sources instead of 496 partials.
 """
 
 from __future__ import annotations
@@ -188,8 +188,8 @@ def synthesize_spectrum(amp, q, f0, phases, prev_spectrum, mixing,
     cur = jax.lax.dot_general(
         peak, w, dimension_numbers=(((1,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST)          # (F, 2); exact f32 on
-    # TPU MXUs (DEFAULT would round operands to bf16 — features._EXACT)
+        precision=jax.lax.Precision.HIGHEST)          # (F, 2); exact f32
+    # (DEFAULT would run in TF32 on GPU tensor cores — features._EXACT)
 
     c = jnp.asarray(consts["static_cos"])
     s = jnp.asarray(consts["static_sin"])

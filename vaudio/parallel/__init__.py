@@ -2,16 +2,18 @@
 
 The reference is single-process/single-GPU; its only scale axis is
 "more concurrent streams" (SURVEY.md §5, BASELINE config 5: 8x concurrent
-1080p streams on a v5e-8 mesh).  This module provides the SPMD layers:
+1080p streams over a multi-device mesh).  This module provides the SPMD
+layers:
 
 * :func:`make_batched_step` — ``vmap`` across streams within one chip;
 * :func:`make_parallel_step` — ``shard_map`` over a 2-D
-  ``('stream', 'cell')`` mesh: data parallelism across streams riding ICI,
+  ``('stream', 'cell')`` mesh: data parallelism across streams,
   plus tensor parallelism inside the synthesis (the 16 synthesis cells are
   sharded over ``'cell'`` and their spectra combined with a ``psum``);
 * :func:`run_offline_parallel` — scan the sharded step over a batched clip;
 * :mod:`vaudio.parallel.multihost` — per-host stream ingest for meshes
-  that span processes (streams DP over DCN, frame bytes stay host-local);
+  that span processes (streams DP across hosts, frame bytes stay
+  host-local);
 * :class:`vaudio.parallel.hostpod.MultiHostPod` — the LIVE serving pod
   over a process-spanning mesh: per-host rings/push doors/leases/panel,
   one lockstep SPMD dispatch, per-slot params sharded with the streams.

@@ -1,13 +1,14 @@
-"""Multi-host serving pods: one pod whose slots span TPU hosts.
+"""Multi-host serving pods: one pod whose slots span hosts.
 
 :class:`vaudio.runtime.multistream.MultiStreamAuralizer` serves N streams
 from ONE process; :mod:`vaudio.parallel.multihost` scales the *offline*
 stream axis across processes.  This module closes the gap the round-3
 roadmap left open ("a pod whose slots span hosts would need per-host push
 doors + a process-spanning mesh"): a **live serving pod distributed over
-a multi-host TPU slice**, keeping the reference's per-stream serving
+a multi-host cluster**, keeping the reference's per-stream serving
 semantics (SoundEngine.swift:171-189 ring contract, per-slot live params
-SoundEngine.swift:66-75) while the dispatch is one SPMD program over DCN.
+SoundEngine.swift:66-75) while the dispatch is one SPMD program across
+hosts.
 
 Design — everything HOST-LOCAL except the dispatch:
 
@@ -17,7 +18,7 @@ Design — everything HOST-LOCAL except the dispatch:
   local_stream_slice`);
 * frame ingest, ring buffers, push doors, slot leases, the HTTP panel,
   metrics and checkpoints are per host and cover only the local slots —
-  frame bytes and PCM never cross DCN (the multihost.py layout rule);
+  frame bytes and PCM never cross hosts (the multihost.py layout rule);
 * each tick every host stacks its local frames and per-slot params,
   assembles the global batch with
   ``jax.make_array_from_process_local_data`` (purely local: each process

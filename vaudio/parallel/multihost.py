@@ -1,19 +1,20 @@
-"""Multi-host ingest: scale the stream axis across hosts (DCN).
+"""Multi-host ingest: scale the stream axis across hosts.
 
 The reference is a single-process app fed by one camera
 (video-auralizer/CameraModel.swift:12-37); its only scale axis is "more
 streams" (SURVEY.md §5: the pipeline is embarrassingly parallel per
-stream).  On a multi-host TPU deployment that axis maps naturally onto
+stream).  On a multi-host deployment that axis maps naturally onto
 processes: every host captures/decodes its OWN streams (cameras, files,
 sockets) and feeds only the mesh shard its local devices hold, so frame
-bytes never cross DCN — the only cross-host traffic is XLA's SPMD
+bytes never cross hosts — the only cross-host traffic is XLA's SPMD
 bookkeeping.  Layout rules:
 
-* the ``'stream'`` mesh axis spans processes (outer axis, DCN): pure data
+* the ``'stream'`` mesh axis spans processes (outer axis, the inter-host
+  network): pure data
   parallelism, zero collectives at step time;
 * an optional ``'cell'`` tensor-parallel axis stays the MINOR axis so its
-  psum (vaudio/parallel/sharding.py:113) rides ICI within each host's
-  slice, never DCN.
+  psum (vaudio/parallel/sharding.py:113) stays on the intra-host
+  interconnect, never the inter-host network.
 
 The front door is :func:`distribute_local_frames`, built on
 ``jax.make_array_from_process_local_data``: each process passes the frames
@@ -47,7 +48,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
     Returns the process count.  On real deployments the three arguments
     usually come from the cluster environment and may all be ``None``
-    (jax.distributed auto-detects GKE/SLURM/TPU pods etc.).
+    (jax.distributed auto-detects SLURM, Kubernetes and similar
+    cluster environments).
     """
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(
@@ -72,7 +74,7 @@ def make_multihost_mesh(n_cell: int = 1) -> Mesh:
 
     ``jax.devices()`` orders devices process-major, so reshaping to
     (n_stream, n_cell) keeps each process's devices contiguous along
-    'stream' and puts the 'cell' psum on intra-host ICI.
+    'stream' and keeps the 'cell' psum on the intra-host interconnect.
     """
     return make_stream_mesh(n_cell=n_cell)
 
@@ -110,7 +112,7 @@ def distribute_local_frames(mesh: Mesh, local_frames,
       local_frames: array of shape (S_local, T, ...) — the frames for the
         streams THIS process owns (see :func:`local_stream_slice`).  Frame
         bytes are placed directly on the process's local devices; nothing
-        crosses DCN.
+        crosses hosts.
       n_streams: global stream count.
     Returns:
       A global jax.Array of shape (n_streams, T, ...) sharded P('stream').

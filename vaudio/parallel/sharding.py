@@ -8,7 +8,7 @@ insert collectives.
   the only traffic on this axis is the initial shard placement.
 * ``'cell'`` axis — tensor parallelism inside the synthesis: each device
   computes the spectrum contribution of ``16/n`` synthesis cells and the
-  full spectrum is reduced with a ``psum`` riding ICI.  The vision pass and
+  full spectrum is reduced with a ``psum`` across devices.  The vision pass and
   post-psum DSP are replicated on this axis (they are ~1% of the FLOPs).
 
 Note the quirk-compat phase layout makes per-cell phase reads *non-local*
@@ -102,7 +102,7 @@ def _tp_frame_step(carry: StepCarry, frame, params, cfg: AuralizerConfig,
     cell_slice = (start, local_cells)
 
     # Shared synthesis stages (vaudio.synth.spectrum), restricted to the
-    # local cell range; the full-spectrum sum is ONE psum riding ICI.
+    # local cell range; the full-spectrum sum is ONE psum.
     pfreq, w_re, w_im, inv_bw = partial_weights(
         hues, grads, phases, cfg, consts, cell_slice=cell_slice)
     flat_pf, flat_w, flat_ibw = flatten_partials(
@@ -166,7 +166,7 @@ def make_parallel_chunk_step(cfg: AuralizerConfig, mesh: Mesh,
     shard running the chunk-batched pipeline (runtime.chunked — ONE
     frame-batched contraction per stream-chunk) on its local
     streams.  The highest-throughput multi-chip shape: embarrassingly
-    parallel over ICI with zero collectives.
+    parallel with zero collectives.
 
     Requires the mesh's 'cell' axis to be 1 — the batched contraction is
     not cell-sharded (use make_parallel_step for latency-oriented TP).
@@ -206,7 +206,7 @@ def make_engine_parallel_step(engine, mesh: Mesh, chunk: bool = False,
     the 'stream' axis, params replicated — the model-agnostic
     counterpart of :func:`make_parallel_chunk_step`, built from the
     engine's raw per-frame (or per-chunk) step.  Embarrassingly
-    parallel over ICI with zero collectives.
+    parallel with zero collectives.
 
     No TP decomposition is assumed, so a 'cell' axis (if present) must
     be size 1 — cell-sharded synthesis is flagship-specific

@@ -2,19 +2,14 @@
 vaudio.runtime.step, restructured so the heavy synthesis stage runs
 BATCHED across frames instead of once per scan iteration.
 
-Motivation (benchmarks/PALLAS_SWEEP.json, TPU v5e, chained-slope
-measurement): the spectrum contraction costs ~19 us/frame dispatched
-per-frame inside lax.scan but ~10 us/frame as ONE frame-batched
-dispatch — batching amortizes per-iteration scheduling overhead and
-lets every per-sample stage (contraction, irfft, OLA windowing) run as
-one large kernel.  Only the stages with a true serial dependence stay
-sequential:
+Batching amortizes per-iteration scheduling overhead and lets every
+per-sample stage (contraction, irfft, OLA windowing) run as one large
+kernel.  Only the stages with a true serial dependence stay sequential:
 
   pass A (lax.scan): vision -> hue EMA -> phase accumulation
           (the hue EMA is nonlinear int truncation; phases accumulate);
   pass B (batched):  per-partial weights, ONE batched peak contraction
-          for all T frames (XLA by default; the Pallas kernel via
-          use_pallas=True), static phase rotation, HP/LP filter;
+          for all T frames, static phase rotation, HP/LP filter;
   pass C: spectrum EMA as a cheap elementwise lax.scan, then the audio
           tail with its scalar recurrences (AGC running max, OLA tail)
           factored out of the batched math — per-frame *scalars* scan,
@@ -28,7 +23,7 @@ same values as frame_step, so outputs match the scan path bit-for-near
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 
@@ -36,7 +31,8 @@ import jax
 import jax.numpy as jnp
 
 from vaudio.config import AuralizerConfig
-from vaudio.dsp import hann_window_norm, irfft_from_half, sigmoid_normalize
+from vaudio.dsp import hann_sinc_peak_fast, hann_window_norm, \
+    irfft_from_half, sigmoid_normalize
 from vaudio.runtime.step import StepCarry, default_params, init_carry
 from vaudio.synth import (SynthConstants, flatten_partials,
                           live_pan_from_params, partial_weights,
@@ -47,28 +43,11 @@ from vaudio.vision import frame_stats, hist_max_and_arg, \
 
 
 def _batched_contraction(flat_pf, flat_w, flat_ibw, cfg: AuralizerConfig,
-                         consts: SynthConstants,
-                         use_pallas: Optional[bool]):
-    """(T, NP) partials -> (T, F, K) raw spectra, one dispatch.
-
-    ``use_pallas=None`` auto-selects the vmapped XLA contraction: with the
-    transcendental-free peak evaluation (dsp.hann_sinc_peak_fast) it
-    measures 10.3 us/frame vs 11.5 for the batched Pallas kernel on the
-    v5e (chained-slope, benchmarks/PALLAS_SWEEP.json) — XLA's fusion of
-    the polynomial into the dot operand beats the hand-tiled kernel once
-    the libm sine is gone.  ``use_pallas=True`` (or cfg.use_pallas) keeps
-    the verified Pallas path available.
-    """
-    if use_pallas is None:
-        use_pallas = False
+                         consts: SynthConstants):
+    """(T, NP) partials -> (T, F, K) raw spectra, one dispatch: the
+    transcendental-free peak evaluation (dsp.hann_sinc_peak_fast) feeding
+    one f32 dot per frame, vmapped over the chunk."""
     hann_mult = np.float32(1.0 / cfg.bin_width)
-    if use_pallas:
-        from vaudio.ops import hann_peak_weighted_sum_batched
-        return hann_peak_weighted_sum_batched(
-            jnp.asarray(consts.freqs), flat_pf, flat_ibw * hann_mult,
-            flat_w, num_bins=cfg.num_bins,
-            interpret=jax.default_backend() == "cpu")
-    from vaudio.dsp import hann_sinc_peak_fast
     freqs = jnp.asarray(consts.freqs)
 
     def one(pf, scale, w):
@@ -77,56 +56,31 @@ def _batched_contraction(flat_pf, flat_w, flat_ibw, cfg: AuralizerConfig,
         return jax.lax.dot_general(
             W, w, dimension_numbers=(((1,), (0,)), ((), ())),
             preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST)  # exact f32 on the MXU
-            # (TPU DEFAULT = bf16 operand rounding; features._EXACT)
+            precision=jax.lax.Precision.HIGHEST)  # exact f32, not TF32
+            # (see features._EXACT)
     return jax.vmap(one)(flat_pf, flat_ibw * hann_mult, flat_w)
 
 
 def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
                    cfg: AuralizerConfig, consts: SynthConstants, window,
-                   use_pallas: Optional[bool] = None,
                    debug: bool = False
                    ) -> Tuple[StepCarry, Dict[str, Any]]:
     """Process T frames; returns (new_carry, out) with out["pcm"] of shape
     (T, hop) mono or (T, hop, channels) stereo — the multi-frame
-    equivalent of T frame_step calls.
-
-    ``use_pallas``: None = the XLA contraction (measured fastest;
-    cfg.use_pallas=True forces the Pallas kernel on)."""
-    if use_pallas is None and cfg.use_pallas:
-        use_pallas = True
+    equivalent of T frame_step calls."""
     ch = cfg.channels
     mixing = jnp.asarray(params["spectrum_mixing"], jnp.float32)
     T = (frames["y"] if isinstance(frames, dict) else frames).shape[0]
 
     # ---- pass A: vision stats BATCHED over all frames (per-frame
-    # independent: mip/HSI/histogram/grad matmuls get a T-deep batch on
-    # the MXU); only the hue EMA + phase accumulation — 16 ints + a
-    # (16, 32) add per frame — stay in a (tiny) serial scan. ----
-    from vaudio.vision import frame_mip_planes, use_vision_kernel
-    if isinstance(frames, dict):
-        hh, ww = frames["y"].shape[1], frames["y"].shape[2]
-    else:
-        hh, ww = frames.shape[1], frames.shape[2]
-    hm, wm = hh >> cfg.mip_level, ww >> cfg.mip_level
-    if use_vision_kernel(hm, wm, cfg):
-        # Fused vision-epilogue kernel, frame-blocked: the mips come
-        # from the (vmapped) pool stage, then ONE frame-blocked Pallas
-        # kernel does HSI + histogram + stencils + stats for the whole
-        # chunk (ops/vision_kernel.vision_stats_pallas_batched — a
-        # per-frame grid step measured 2.2x slower; blocking amortizes
-        # the launch overhead).
-        from vaudio.ops.vision_kernel import vision_stats_pallas_batched
-        mips = jax.vmap(lambda f: frame_mip_planes(f, cfg))(frames)
-        hists, grads_seq = vision_stats_pallas_batched(
-            mips, cfg, interpret=jax.default_backend() == "cpu")
-    else:
-        def stats_one(frame):
-            hist, grads, _ = frame_stats(frame, cfg)
-            return hist, grads
+    # independent: mip/HSI/histogram/grad matmuls get a T-deep batch);
+    # only the hue EMA + phase accumulation — 16 ints + a (16, 32) add
+    # per frame — stay in a (tiny) serial scan. ----
+    def stats_one(frame):
+        hist, grads, _ = frame_stats(frame, cfg)
+        return hist, grads
 
-        hists, grads_seq = jax.vmap(stats_one)(frames)
-        # (T,16,360), (T,16,4)
+    hists, grads_seq = jax.vmap(stats_one)(frames)    # (T,16,360), (T,16,4)
     max_vals, args = hist_max_and_arg(hists)           # (T, 16) each
 
     if cfg.use_cumsum_phases:
@@ -177,8 +131,8 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
 
     flat_pf, flat_w, flat_ibw = jax.vmap(weights_one)(
         hues_seq, grads_seq, phases_seq)                 # (T, NP[, K])
-    cur = _batched_contraction(flat_pf, flat_w, flat_ibw, cfg, consts,
-                               use_pallas)               # (T, F, K)
+    cur = _batched_contraction(flat_pf, flat_w, flat_ibw, cfg,
+                               consts)                   # (T, F, K)
 
     if ch == 2:
         cur = jnp.transpose(cur.reshape(T, -1, ch, 2), (0, 2, 1, 3))
@@ -200,7 +154,7 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
     # ---- pass C1: spectrum EMA ----
     if cfg.use_matmul_ema:
         # Closed form of the linear recurrence as one lower-triangular
-        # (T, T+1) contraction on the MXU:
+        # (T, T) contraction:
         #   spec_t = m^{t+1} prev + (1-m) * sum_{k<=t} m^{t-k} rot_k.
         # Reassociated accumulation (<= ~1e-6 abs vs the scan at T=64);
         # see config.use_matmul_ema.
@@ -217,7 +171,7 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
         spectra = jax.lax.dot_general(
             L, flat, dimension_numbers=(((1,), (0,)), ((), ())),
             preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST)   # exact f32 on the MXU
+            precision=jax.lax.Precision.HIGHEST)   # exact f32, not TF32
         spectra = spectra + pows[:, None] * \
             carry.prev_spectrum.reshape(1, -1)
         spectra = spectra.reshape((T,) + rot.shape[1:]).astype(jnp.float32)
@@ -235,9 +189,9 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
     # ---- pass C2: audio tail, scalars serial / samples batched ----
     # One big batched irfft over all frames (and channels).
     if cfg.use_matmul_irfft:
-        # MXU path: one (T[*ch], F) x (F, nfft) contraction pair; the
+        # Dense path: one (T[*ch], F) x (F, nfft) contraction pair; the
         # 33 MB weight read amortizes over the whole chunk
-        # (dsp.irfft_from_half_dense, benchmarks/irfft_focus.py).
+        # (dsp.irfft_from_half_dense).
         from vaudio.dsp import irfft_from_half_dense
         signals = irfft_from_half_dense(spectra[..., 0], spectra[..., 1])
     elif ch == 1:
@@ -297,8 +251,7 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
 
 def blocked_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
                      cfg: AuralizerConfig, consts: SynthConstants, window,
-                     block: int = 8, use_pallas: Optional[bool] = None,
-                     debug: bool = False
+                     block: int = 8, debug: bool = False
                      ) -> Tuple[StepCarry, Dict[str, Any]]:
     """Sequential scan dispatched as BLOCKED sub-chunks: one device-side
     ``lax.scan`` whose body is ``chunk_pipeline`` over ``block`` frames.
@@ -309,9 +262,8 @@ def blocked_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
     re-uses the chunk pipeline's batched math (one contraction, one
     irfft, batched OLA for the whole block) at a fixed sub-chunk
     granularity while keeping the whole clip in ONE dispatch, so the
-    marginal per-frame cost approaches the chunked headline instead of
-    the per-frame scan's (VERDICT r4 item 5; measured on the v5e in
-    benchmarks/AB_FLAGS_r05_scan.json).
+    marginal per-frame cost approaches the chunked pipeline's instead of
+    the per-frame scan's.
 
     Semantics are those of T sequential frame_step calls: identical
     per-frame outputs up to the documented chunk-pipeline deviations
@@ -330,7 +282,7 @@ def blocked_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
 
     def body(c, fr):
         return chunk_pipeline(c, fr, params, cfg, consts, window,
-                              use_pallas=use_pallas, debug=debug)
+                              debug=debug)
 
     carry, outs = jax.lax.scan(body, carry, fb)
     out = {k: v.reshape((T,) + tuple(v.shape[2:])) for k, v in outs.items()}
@@ -338,7 +290,7 @@ def blocked_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
 
 
 def make_chunk_pipeline(cfg: AuralizerConfig, debug: bool = False,
-                        use_pallas: Optional[bool] = None, jit: bool = True):
+                        jit: bool = True):
     """Build ``chunk_step(carry, frames[T, ...], params)`` with constants
     baked (the chunk-batched counterpart of runtime.make_step)."""
     consts = SynthConstants.create(cfg)
@@ -346,7 +298,7 @@ def make_chunk_pipeline(cfg: AuralizerConfig, debug: bool = False,
 
     def step(carry, frames, params):
         return chunk_pipeline(carry, frames, params, cfg, consts, window,
-                              use_pallas=use_pallas, debug=debug)
+                              debug=debug)
 
     if jit:
         step = jax.jit(step, donate_argnums=(0,))
@@ -356,8 +308,7 @@ def make_chunk_pipeline(cfg: AuralizerConfig, debug: bool = False,
 def run_offline_batched(frames, cfg: AuralizerConfig,
                         params: Dict[str, Any] | None = None,
                         carry: StepCarry | None = None,
-                        chunk: int = 64, debug: bool = False,
-                        use_pallas: Optional[bool] = None):
+                        chunk: int = 64, debug: bool = False):
     """Offline sonification through the chunk-batched pipeline.
 
     Splits the clip into ``chunk``-frame pieces (last piece runs through a
@@ -382,7 +333,7 @@ def run_offline_batched(frames, cfg: AuralizerConfig,
                        static_argnames=("dbg",))
     def step(carry, fr, params, dbg):
         return chunk_pipeline(carry, fr, params, cfg, consts, window,
-                              use_pallas=use_pallas, debug=dbg)
+                              debug=dbg)
 
     outs = []
     start = 0

@@ -203,7 +203,7 @@ class ControlChannel:
 class LiveDebugRenderer:
     """Continuously re-render the debug surface while a stream runs.
 
-    The TPU-framework equivalent of the reference's live views: the
+    The framework's equivalent of the reference's live views: the
     spectrum/waveform redraw every animation tick during processing
     (Views/SpectrumView.swift:18, Views/TimeDomainFrameView.swift:15) and
     the debug screen shows the per-cell state live

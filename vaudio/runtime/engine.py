@@ -128,8 +128,8 @@ class OrthoModesEngine:
 
     Wraps :class:`vaudio.models.OrthoModesModel` into the engine
     contract: the carry (one phase per mip pixel) is sized by the first
-    frame, the chunk step is a ``lax.scan`` over the frame axis (the
-    dispatch-amortization the relay needs), and LiveParams maps to the
+    frame, the chunk step is a ``lax.scan`` over the frame axis (one
+    dispatch per chunk), and LiveParams maps to the
     model's ``{mode multipliers, spectrum_mixing, attack, release}``.
     The model is mono and RGB-only (computeOrthogonalModes.metal
     predates the planar-YUV path)."""

@@ -2,13 +2,13 @@
 batched device dispatch per tick.
 
 The production serving front door.  The reference serves exactly one
-camera (VideoToAudio.swift:70-92); for a TPU deployment the scale axis is
-batching across independent streams (SURVEY.md §5: "the pipeline is
-embarrassingly parallel per stream") — a chip that sonifies one 1080p30
-stream at ~900x realtime should serve hundreds, and the measured batched
-throughput (benchmarks/THROUGHPUT_r03.json: 30.5k frames/s aggregate at
-8x1080p) is only reachable when frames from many streams ride one
-dispatch.  This module packages that shape as a long-lived "pod":
+camera (VideoToAudio.swift:70-92); for an accelerator deployment the
+scale axis is batching across independent streams (SURVEY.md §5: "the
+pipeline is embarrassingly parallel per stream") — a device that sonifies
+one 1080p30 stream many times faster than real time should serve many
+streams, and batched throughput is only reachable when frames from many
+streams ride one dispatch.  This module packages that shape as a
+long-lived "pod":
 
 * N frame sources advance in lockstep, one frame per stream per tick
   (or ``chunk_frames`` per stream through the chunk-batched pipeline —
@@ -16,7 +16,7 @@ dispatch.  This module packages that shape as a long-lived "pod":
 * ONE device call per tick: ``vmap`` of the fused step over the stream
   axis on a single chip, or the DP/TP mesh steps of
   :mod:`vaudio.parallel.sharding` when a :class:`jax.sharding.Mesh` is
-  given (streams sharded over ICI, zero collectives in the DP shape);
+  given (streams sharded over devices, zero collectives in the DP shape);
 * per-stream ring buffers keep the reference's real-time sink contract
   (warm-up / zero-fill / drop-on-full, SoundEngine.swift:171-189,448)
   independently per stream;

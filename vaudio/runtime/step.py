@@ -71,7 +71,7 @@ def synth_audio(spectrum, ola_tail, running_max, params: Dict[str, Any],
     Returns (pcm, new_ola_tail, new_running_max).
     """
     if cfg.use_matmul_irfft:
-        # MXU path (dsp.irfft_from_half_dense): batched over any leading
+        # Dense path (dsp.irfft_from_half_dense): batched over any leading
         # dims, so mono (F, 2) and stereo (ch, F, 2) need no vmap.
         from vaudio.dsp import irfft_from_half_dense
         signal = irfft_from_half_dense(spectrum[..., 0], spectrum[..., 1])
@@ -82,16 +82,8 @@ def synth_audio(spectrum, ola_tail, running_max, params: Dict[str, Any],
             lambda sp: irfft_from_half(sp[:, 0], sp[:, 1]))(spectrum)
     attack = jnp.asarray(params["attack"], jnp.float32)
     release = jnp.asarray(params["release"], jnp.float32)
-    if cfg.use_pallas or cfg.use_pallas_audio:
-        # Fused AGC+OLA kernel: one dispatch instead of ~10 tiny XLA
-        # kernels (per-kernel launch overhead dominates this stage).
-        from vaudio.ops.audio_kernel import agc_overlap_add
-        pcm, new_tail, new_max = agc_overlap_add(
-            signal, ola_tail, window, running_max, attack, release)
-    else:
-        normalized, new_max = agc_normalize(
-            signal, running_max, attack, release)
-        pcm, new_tail = overlap_add(normalized, ola_tail, window)
+    normalized, new_max = agc_normalize(signal, running_max, attack, release)
+    pcm, new_tail = overlap_add(normalized, ola_tail, window)
     if cfg.channels != 1:
         pcm = pcm.T                         # (hop, channels) interleaved
     return pcm, new_tail, new_max
@@ -183,19 +175,16 @@ def run_offline(frames, cfg: AuralizerConfig,
     Args:
       frames: f32[T, H, W, 3] RGB video tensor in [0,1].
       unroll: lax.scan unroll factor; >1 lets XLA overlap kernels across
-        frames at the cost of longer compiles.  Measured sweep on the
-        v5e at 1080p stereo (bench.py scan path): unroll 4 = 73
-        us/frame, 8 = 65 (the sweet spot, 514x realtime), 16 = 81
-        (live intermediates overflow).  Default 1 keeps CPU test
-        compiles cheap; production streaming uses the chunked pipeline
-        (runtime.chunked), which owns its own unrolling.
+        frames at the cost of longer compiles (not measured on the
+        H100).  Default 1 keeps CPU test compiles cheap; production
+        streaming uses the chunked pipeline (runtime.chunked), which
+        owns its own unrolling.
       block: >1 dispatches the scan as BLOCKED SUB-CHUNKS — one
         device-side lax.scan whose body is the chunk pipeline over
         ``block`` frames (runtime.chunked.blocked_pipeline; any
-        remainder runs through one extra chunk_pipeline call).  On the
-        v5e at 1080p stereo the per-frame scan costs 71.4 us/frame vs
-        42.0 blocked-8 (benchmarks/AB_FLAGS_r05_scan.json) — the fast
-        whole-clip deployment shape.  Semantics match the per-frame
+        remainder runs through one extra chunk_pipeline call) — the
+        whole-clip deployment shape with the fewest per-frame
+        scheduling gaps.  Semantics match the per-frame
         scan up to the documented chunk-pipeline band (docs/PARITY.md);
         ``debug`` outputs stay per-frame.  Mutually exclusive with
         ``unroll`` > 1.

@@ -1,13 +1,13 @@
 """Spectral synthesis — the L3 layer of SURVEY.md §1.
 
-TPU-native re-expression of the reference's additive harmonic+Bessel
-synthesizer: the ``computeSpectrum`` Metal kernel
+Re-expression, as dense XLA contractions, of the reference's additive
+harmonic+Bessel synthesizer: the ``computeSpectrum`` Metal kernel
 (Metal Functions/SpectrumCompute.metal:82-214) and the CPU-side phase
 accumulation (SoundEngine.swift:257-286).
 
 The per-bin/per-cell/per-partial triple loop becomes a dense two-stage
-computation: a (bins x partials) windowed-sinc peak matrix evaluated on the
-VPU, contracted with per-partial complex weights on the MXU.
+computation: a (bins x partials) windowed-sinc peak matrix evaluated
+elementwise, contracted with per-partial complex weights in one dot.
 """
 
 from vaudio.synth.spectrum import (

@@ -8,9 +8,9 @@ with a serial 16-cell x 31-partial inner loop):
    snapping, roll-off, gains, phases, per-cell normalization.  Produces one
    complex weight per partial.
 2. Peak-stamping stage: W[bin, partial] = hann_sinc_peak(scaled bin
-   distance), then ``spectrum = W @ weights`` — an MXU contraction.  The
-   1.0M windowed-sinc evaluations per frame are batched on the VPU instead
-   of looped per-thread.
+   distance), then ``spectrum = W @ weights`` — one matrix contraction.
+   The 1.0M windowed-sinc evaluations per frame are batched elementwise
+   instead of looped per-thread.
 
 All index-only quantities (hash phases, static per-bin phase rotation,
 phase-accumulator gather indices) are precomputed on the host in float64 and
@@ -20,7 +20,6 @@ baked into the jit as constants — they never change between frames.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import numpy as np
 
@@ -405,7 +404,7 @@ def flatten_partials(pfreq, w_re, w_im, inv_bw, cfg: AuralizerConfig,
 def contract_spectrum(flat_pf, flat_w, flat_ibw, cfg: AuralizerConfig,
                       consts: SynthConstants):
     """Stage 2: stamp every partial's Hann-transform peak onto the F-bin
-    grid — W[bin, partial] @ weights, the MXU contraction (the 1.0M
+    grid — W[bin, partial] @ weights, the matrix contraction (the 1.0M
     windowed-sinc evaluations of SpectrumCompute.metal:128-190, batched).
 
     Returns f32[F, 2*channels] raw (un-rotated, un-smoothed) spectrum.
@@ -414,9 +413,9 @@ def contract_spectrum(flat_pf, flat_w, flat_ibw, cfg: AuralizerConfig,
     hann_mult = np.float32(1.0 / cfg.bin_width)
     d = (freqs[:, None] - flat_pf[None, :]) * (hann_mult * flat_ibw)
     W = hann_sinc_peak_fast(d)                               # (F, NP)
-    # HIGHEST: TPU DEFAULT-precision f32 dots round operands to bf16
-    # (~2^-9 relative); exact f32 keeps the <=3.4e-5 oracle parity on
-    # device (see vision/features._EXACT).  FLOPs here are negligible.
+    # HIGHEST: DEFAULT-precision f32 dots run in TF32 on GPU tensor
+    # cores (~1e-3 relative); exact f32 keeps the <=3.4e-5 oracle parity
+    # on device (see vision/features._EXACT).  FLOPs here are negligible.
     return jax.lax.dot_general(
         W, flat_w, dimension_numbers=(((1,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,
@@ -462,7 +461,6 @@ def finalize_spectrum(cur, prev_spectrum, spectrum_mixing,
 
 def build_spectrum(hues, grads, phases, prev_spectrum, spectrum_mixing,
                    cfg: AuralizerConfig, consts: SynthConstants,
-                   use_pallas: Optional[bool] = None,
                    filter_params=None):
     """Full spectrum synthesis for one frame.
 
@@ -484,19 +482,12 @@ def build_spectrum(hues, grads, phases, prev_spectrum, spectrum_mixing,
     L/R by the cell pan law before the SAME peak-matrix contraction — the
     heavy (F x partials) stage is shared between channels.
     """
-    if use_pallas is None:
-        use_pallas = cfg.use_pallas
-
     pfreq, w_re, w_im, inv_bw = partial_weights(hues, grads, phases, cfg,
                                                 consts)
     flat_pf, flat_w, flat_ibw = flatten_partials(
         pfreq, w_re, w_im, inv_bw, cfg,
         pan=live_pan_from_params(cfg, filter_params))
-    if use_pallas:
-        from vaudio.ops.spectrum_kernel import spectrum_pallas
-        cur = spectrum_pallas(flat_pf, flat_w, flat_ibw, cfg, consts)
-    else:
-        cur = contract_spectrum(flat_pf, flat_w, flat_ibw, cfg, consts)
+    cur = contract_spectrum(flat_pf, flat_w, flat_ibw, cfg, consts)
 
     return finalize_spectrum(cur, prev_spectrum, spectrum_mixing, cfg,
                              consts, filter_params=filter_params)

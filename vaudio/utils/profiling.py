@@ -1,6 +1,6 @@
 """Profiling / tracing.
 
-TPU equivalent of the reference's latency instrumentation
+The equivalent of the reference's latency instrumentation
 (SoundEngine.swift:430-434,477-484: wall clock around the frame pipeline,
 published per frame): a host-side frame timer with percentile summaries,
 plus a thin wrapper over ``jax.profiler`` for device-level traces.

@@ -1,15 +1,14 @@
 """Vision engine — frame feature extraction (the L2 layer of SURVEY.md §1).
 
-TPU-native re-expression of video-auralizer/VisionEngine.swift and the two
-live Metal kernels in Metal Functions/convolveFeatures.metal:
+Re-expression, as one fused XLA graph, of video-auralizer/VisionEngine.swift
+and the two live Metal kernels in Metal Functions/convolveFeatures.metal:
 
 * mip-pyramid downsampling (Metal ``generateMipmaps``) -> repeated 2x2
   mean pooling;
 * ``convolveFeatures`` -> fused HSI conversion + four 3x3 zero-sum mode
   stencils with clamp-to-edge borders;
 * ``calculateHueHistogram`` -> an atomics-free one-hot/matmul histogram
-  (TPUs have no scatter atomics; the MXU formulation is the idiomatic
-  equivalent of the Metal atomic scatter-add);
+  (exact integer counts, equal to the Metal atomic scatter-add);
 * the CPU reductions of ``processVideoFrame`` (per-cell hue argmax + EMA,
   per-cell gradient statistics) -> batched reductions.
 """
@@ -20,7 +19,6 @@ from vaudio.vision.features import (
     extract_features,
     frame_mip_planes,
     frame_stats,
-    use_vision_kernel,
     hist_max_and_arg,
     feature_stencil,
     hue_histogram,
@@ -39,7 +37,6 @@ __all__ = [
     "extract_features",
     "frame_mip_planes",
     "frame_stats",
-    "use_vision_kernel",
     "hist_max_and_arg",
     "feature_stencil",
     "hue_histogram",
